@@ -1,8 +1,8 @@
-"""gridapsolvers_tpu — a TPU-native sparse linear-algebra and preconditioned
-solver framework in JAX.
+"""gridapsolvers_tpu — a sparse linear-algebra and preconditioned solver
+framework in JAX, run on NVIDIA GPUs.
 
 Built from scratch with the capabilities of GridapSolvers.jl (reference
-surveyed in SURVEY.md) but an idiomatic XLA/Pallas/shard_map design:
+surveyed in SURVEY.md) but an idiomatic XLA/shard_map design:
 
 - ``algebra``     : sparse operator formats (ELL, stencil/DIA, block, dense)
                     as JAX pytrees with fused, gather-light matvecs.
@@ -27,7 +27,6 @@ surveyed in SURVEY.md) but an idiomatic XLA/Pallas/shard_map design:
 - ``parallel``    : device-mesh SPMD: sharded vectors, halo-exchange SpMV
                     via shard_map + ppermute, coarse-level re-sharding
                     (replaces PartitionedArrays.jl/MPI in the reference).
-- ``ops``         : Pallas TPU kernels for the hot paths.
 - ``models``      : application drivers (Poisson, Darcy, Stokes,
                     Navier-Stokes, Elasticity). (reference: test/Applications)
 """

@@ -1,6 +1,6 @@
 """Block operators for multiphysics (saddle-point) systems.
 
-TPU-native replacement for the reference's BlockPRange / block PSparseMatrix
+Replacement for the reference's BlockPRange / block PSparseMatrix
 (BlockMultiFieldStyle assembly): a block operator is just an N x N grid of
 per-field operators, and a block *vector* is a tuple of per-field arrays
 (a pytree — so the Krylov drivers in linear/ work on it unchanged; see

@@ -7,6 +7,7 @@ import scipy.sparse as sp
 from .block import BlockOperator, ColumnStack, FieldwiseOperator, RowStack
 from .dense import DenseMatrix
 from .ell import ELLMatrix, ell_to_scipy
+from .flat import BlockedKernelOperator
 from .stencil import StencilMatrix
 
 
@@ -44,6 +45,17 @@ def to_scipy(op) -> sp.csr_matrix:
                 if mats[i][j] is None:
                     mats[i][j] = sp.csr_matrix((rs[i], cs[j]))
         S = sp.bmat(mats, format="csr")
+    elif isinstance(op, BlockedKernelOperator):
+        S = sp.bmat(
+            [
+                [
+                    sp.csr_matrix((ni, nj)) if b is None else to_scipy(b)
+                    for b, nj in zip(row, op.sizes)
+                ]
+                for row, ni in zip(op.kblocks, op.sizes)
+            ],
+            format="csr",
+        )
     elif type(op).__name__ == "DistELLMatrix":
         from ..parallel.dist_ell import dist_to_scipy
 

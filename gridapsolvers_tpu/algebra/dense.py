@@ -25,7 +25,7 @@ class DenseMatrix:
         return self.A.size
 
     def matvec(self, x):
-        return self.A @ x
+        return jnp.matmul(self.A, x, precision="highest")
 
     def diag(self):
         return jnp.diagonal(self.A)

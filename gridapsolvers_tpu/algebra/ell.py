@@ -1,16 +1,16 @@
 """ELL (padded fixed-width) sparse matrix — the general-sparsity workhorse.
 
-TPU-native design choice (vs the reference's CSR/CSC via SparseArrays /
-PartitionedArrays): CSR row-pointer iteration is hostile to the VPU (dynamic
-row lengths, serial scans). FEM matrices on meshes have bounded row degree
+Design choice (vs the reference's CSR/CSC via SparseArrays /
+PartitionedArrays): CSR row-pointer iteration gives every row its own
+length and a serial scan, which XLA cannot turn into one fused loop. FEM
+matrices on meshes have bounded row degree
 (Q1 3D: 27; Q2 3D: 125), so we store every row padded to a fixed width K:
 
     values : (n_rows, K) float      — zero-padded
     cols   : (n_rows, K) int32      — padding points at the row itself
 
-SpMV is then `(values * x[cols]).sum(-1)`: one aligned gather + a dense
-elementwise reduce, fully vectorizable and fusible by XLA, and expressible
-as a Pallas kernel with scalar-prefetched indices (ops/spmv_pallas.py).
+SpMV is then `(values * x[cols]).sum(-1)`: one gather + a dense
+elementwise reduce, which XLA fuses into a single loop.
 
 Row degree histograms of our assembled matrices are near-uniform, so padding
 waste is small (<15% for Q1/Q2 interiors).

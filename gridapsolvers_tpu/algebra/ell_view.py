@@ -2,9 +2,9 @@
 
 The reference refreshes matrix-extracted patch solvers per Newton step with
 `numerical_setup!` re-copying values out of the assembled PSparseMatrix
-(src/PatchBasedSmoothers/BlockJacobiSolvers.jl:141-170). On this backend a
-host detour per refresh is fatal (remote device, ~30ms/transfer), so the
-extraction must run entirely under jit. The split is the usual one:
+(src/PatchBasedSmoothers/BlockJacobiSolvers.jl:141-170). Here the refresh
+runs inside the device Newton loop, so the extraction must run entirely
+under jit. The split is the usual one:
 
   - `ell_pattern(A)`  (host, once at setup): the SPARSITY of the flattened
     system — global padded-ELL column table, field offsets, per-leaf widths.
@@ -169,9 +169,8 @@ def stencil_cols_valid(A: StencilMatrix) -> Tuple[np.ndarray, np.ndarray]:
         )
         # invalid (out-of-grid) slots carry value 0 and must point at the
         # row ITSELF: any other target (e.g. column 0) gives the flattened
-        # ELL pattern unbounded column offsets d = col - row, which defeats
-        # the bounded-bandwidth premise of the sorted-slot Pallas SpMV
-        # kernel (ops/ell_pallas.py) and silently forces its fallback
+        # ELL pattern unbounded column offsets d = col - row, so padding
+        # gathers would read far from the row's own x entries
         self_idx = np.arange(cols.shape[0], dtype=np.int64).reshape(gs)
         cols[:, s] = np.where(ok, nb, self_idx).reshape(-1)
         valid[:, s] = ok.reshape(-1)

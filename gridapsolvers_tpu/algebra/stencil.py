@@ -1,6 +1,6 @@
 """Stencil (generalized-DIA) matrices on structured grids — the hot path.
 
-TPU-native design: on a structured Cartesian grid every FE dof couples only
+Design: on a structured Cartesian grid every FE dof couples only
 to neighbors at a *static* set of grid offsets (Q1: the 3^d cube). Instead
 of storing column indices at all, we store one dense band per offset:
 
@@ -9,7 +9,7 @@ of storing column indices at all, we store one dense band per offset:
 
 SpMV becomes sum_s bands[s] * shift(x, offsets[s]) — a handful of dense
 elementwise multiply-adds over shifted views, ZERO gathers, which XLA fuses
-into a single VPU loop running at HBM speed-of-light. This is the format the
+into a single memory-bound loop. This is the format the
 benchmark SpMV roofline target is measured on; ELLMatrix (ell.py) covers
 general sparsity.
 
@@ -156,8 +156,8 @@ class StencilMatrix:
         return y.reshape(-1)
 
     def matvec_host(self, x: np.ndarray) -> np.ndarray:
-        """Pure-NumPy matvec for setup-time host paths (RHS lifting etc.) —
-        avoids device round-trips when the device is remote."""
+        """Pure-NumPy matvec for setup-time host paths (RHS lifting,
+        host-side f64 residual checks)."""
         xg = np.asarray(x).reshape(self.grid_shape)
         bands = np.asarray(self.bands)
         d = xg.ndim
@@ -253,8 +253,7 @@ def stencil_from_scipy(
     coordinates) form a small static set — e.g. Q2 stiffness on the Q2
     node grid has a 5^d offset envelope. Bands carry explicit zeros where
     a pair inside the envelope is uncoupled; the payoff is a gather-free
-    SpMV (shifted slices), which on TPU beats padded-ELL gathers by large
-    factors (DESIGN.md operator-storage table).
+    SpMV (shifted slices) that reads no column indices.
     """
     coo = S.tocoo()
     gs = tuple(int(m) for m in grid_shape)
@@ -304,9 +303,9 @@ class ConstStencilMatrix:
     which is EXACTLY the Dirichlet-eliminated operator (identity on
     constrained dofs, zeroed constrained columns) whenever every free dof
     has a full cell neighborhood — true for boundary-constrained problems.
-    HBM traffic drops from (3^d + 2) n values to ~3 n values per apply
-    (~14x less in 3D); the 3^d fused multiply-adds become compute on the
-    VPU. The TPU answer to the reference's matrix-free weakform operators.
+    Memory traffic drops from (3^d + 2) n values to ~3 n values per apply
+    (~14x less in 3D); the 3^d fused multiply-adds become arithmetic. The
+    counterpart of the reference's matrix-free weakform operators.
     """
 
     weights: jnp.ndarray   # (n_offsets,)

@@ -221,13 +221,21 @@ def assemble_graddiv(
 def dirichlet_square(
     S: sp.csr_matrix, mask: np.ndarray
 ) -> sp.csr_matrix:
-    """Symmetric elimination on a square CSR: identity rows, zeroed cols."""
-    S = S.tolil()
+    """Symmetric elimination on a square CSR: identity rows, zeroed cols
+    (constrained rows/cols keep only their unit diagonal entry)."""
+    C = S.tocoo()
+    keep = ~mask[C.row] & ~mask[C.col]
     idx = np.where(mask)[0]
-    S[idx, :] = 0.0
-    S[:, idx] = 0.0
-    S[idx, idx] = 1.0
-    return S.tocsr()
+    out = sp.csr_matrix(
+        (
+            np.concatenate([C.data[keep], np.ones(len(idx), C.data.dtype)]),
+            (np.concatenate([C.row[keep], idx]),
+             np.concatenate([C.col[keep], idx])),
+        ),
+        shape=S.shape,
+    )
+    out.sort_indices()
+    return out
 
 
 def zero_columns(S: sp.csr_matrix, mask: np.ndarray) -> sp.csr_matrix:

@@ -124,9 +124,12 @@ class DistQ2Convection:
             cmask_l = cmask_l[0]         # (cmax,)
             ues = [halo_extend(ul, hl, hr, axis) for ul in u_ls]
             u_cell = jnp.stack([ue[conn_l] for ue in ues], axis=-1)
-            u_q = jnp.einsum("cnd,nq->cqd", u_cell, phi)
+            u_q = jnp.einsum(
+                "cnd,nq->cqd", u_cell, phi, precision="highest"
+            )
             N1 = jnp.einsum(
-                "q,iq,cqb,bjq->cij", wq, phi, u_q, dphi
+                "q,iq,cqb,bjq->cij", wq, phi, u_q, dphi,
+                precision="highest",
             ) * cmask_l[:, None, None]
             L = hl + m + hr
             rows = jnp.broadcast_to(
@@ -138,9 +141,12 @@ class DistQ2Convection:
             out1 = halo_reduce(z1, hl, hr, axis)
             if not newton:
                 return (out1,)
-            grad_u = jnp.einsum("cna,bnq->cqab", u_cell, dphi)
+            grad_u = jnp.einsum(
+                "cna,bnq->cqab", u_cell, dphi, precision="highest"
+            )
             N2 = jnp.einsum(
-                "q,iq,jq,cqab->cijab", wq, phi, phi, grad_u
+                "q,iq,jq,cqab->cijab", wq, phi, phi, grad_u,
+                precision="highest",
             ) * cmask_l[:, None, None, None, None]
             z2 = jnp.zeros((L, K, d, d), N2.dtype).at[
                 rows, slots_l.reshape(-1)

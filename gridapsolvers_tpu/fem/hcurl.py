@@ -10,7 +10,7 @@ PETScUtils.interpolation_operator:82-139). Model problem
 on lowest-order Nédélec edge elements over a uniform grid, with essential
 (tangential) boundary conditions.
 
-TPU-native assembly exploits the discrete de Rham complex on tensor grids:
+Assembly exploits the discrete de Rham complex on tensor grids:
 curl maps the edge space EXACTLY onto the RT0 face space via a ±1/h
 incidence operator C (and C @ G == 0 identically), so
 

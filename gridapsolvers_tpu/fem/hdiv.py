@@ -9,7 +9,7 @@ on lowest-order Raviart-Thomas (RT0) face elements, preconditioned by GMG
 with vertex-patch smoothers (the Arnold-Falk-Winther smoothing that makes
 multigrid robust in H(div); plain Jacobi is NOT robust here).
 
-TPU-native pieces:
+Design pieces:
 - RT0 prolongation on structured quads factorizes per component into a 1D
   linear interpolation along the component's normal direction (dilated conv)
   and nearest duplication transverse (jnp.repeat); restriction is its exact

@@ -10,7 +10,7 @@ normal-flux boundary), f = (1,1,1) forcing on u. This is the MHD current-
 coupling block structure: an elliptic velocity block, an RT0 mass current
 block, and skew zeroth-order couplings through the background field B.
 
-TPU-native assembly: on a uniform grid every block is a Kronecker chain of
+Assembly: on a uniform grid every block is a Kronecker chain of
 three 1D matrices (hat-hat mass, hat-cell integrals, 1D stiffness), so the
 whole 6-field system assembles in milliseconds on host with no element
 loops. The GMG smoother is the batched-Vanka vertex patch: center node

@@ -6,7 +6,7 @@ Mirrors the reference's NavierStokes applications
     R(u, p) = [ nu K u + C(u) u + Bᵀ p - f ;  B u ]
 
 with homogeneous velocity Dirichlet BCs and a manufactured divergence-free
-solution. TPU-native twist: convection (re)assembly is fully on-device —
+solution. Design point: convection (re)assembly is fully on-device —
 the sparsity slots of every (cell, i, j) pair into the ELL pattern are
 precomputed on host once, and each Newton step's Jacobian is a batched
 einsum over quadrature + one scatter-add (jit-able), instead of the
@@ -131,16 +131,22 @@ class NavierStokesProblem(NonlinearOperator):
     def _convection_elems(self, u, newton: bool):
         """N1_e (c,i,j) and (if newton) N2_e (c,i,j,a,b)."""
         u_cell = self._u_cell(u)
-        u_q = jnp.einsum("cnd,nq->cqd", u_cell, self.phi)
+        u_q = jnp.einsum(
+            "cnd,nq->cqd", u_cell, self.phi, precision="highest"
+        )
         # N1: int v_i (u . grad) w_j
         N1 = jnp.einsum(
-            "q,iq,cqb,bjq->cij", self.wq, self.phi, u_q, self.dphi
+            "q,iq,cqb,bjq->cij", self.wq, self.phi, u_q, self.dphi,
+            precision="highest",
         )
         if not newton:
             return N1, None
-        grad_u = jnp.einsum("cna,bnq->cqab", u_cell, self.dphi)
+        grad_u = jnp.einsum(
+            "cna,bnq->cqab", u_cell, self.dphi, precision="highest"
+        )
         N2 = jnp.einsum(
-            "q,iq,jq,cqab->cijab", self.wq, self.phi, self.phi, grad_u
+            "q,iq,jq,cqab->cijab", self.wq, self.phi, self.phi, grad_u,
+            precision="highest",
         )
         return N1, N2
 
@@ -532,7 +538,7 @@ def ns_velocity_gmg(
     smoother=None,
     dtype=np.float64,
     graddiv_alpha: float = 0.0,
-    vanka_engine: str = "batched",
+    materialized_vanka: bool = False,
     cheby_degree: int = 0,
     bc: str = "mms",
     **kw,
@@ -540,7 +546,7 @@ def ns_velocity_gmg(
     """GMG preconditioner for the Navier-Stokes velocity block with
     NONLINEAR level reassembly: level Jacobians are rebuilt at the current
     Newton iterate, which is projected down the hierarchy by solution-mode
-    (injection) restrictions — the TPU realization of the reference's
+    (injection) restrictions — the realization of the reference's
     primal_restrictions + gmg_project_solutions! machinery.
 
     graddiv_alpha > 0: the augmented configuration of the reference's
@@ -619,7 +625,7 @@ def ns_velocity_gmg(
                 smoother = [
                     PreconditionedChebyshevSmoother(
                         M=velocity_vanka_smoother(
-                            m, omega=1.0, engine=vanka_engine
+                            m, omega=1.0, materialized=materialized_vanka
                         ),
                         degree=cheby_degree,
                     )
@@ -629,7 +635,7 @@ def ns_velocity_gmg(
                 smoother = [
                     RichardsonSmoother(
                         velocity_vanka_smoother(
-                            m, omega=1.0, engine=vanka_engine
+                            m, omega=1.0, materialized=materialized_vanka
                         ),
                         niter=10,
                         omega=0.2,

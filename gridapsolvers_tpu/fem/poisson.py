@@ -100,8 +100,8 @@ def poisson_problem(
     M = mass(mesh, dtype)
     mask = mesh.boundary_vertex_mask()
 
-    # RHS assembled entirely on host (NumPy): the device may be a remote
-    # TPU where eager per-op round-trips cost seconds
+    # RHS assembled entirely on host (NumPy): no eager per-op device
+    # dispatch during setup
     b_load = M.matvec_host(f_nodal)
     A = eliminate_dirichlet(A_full, mask)
     maskf = mask.reshape(-1)

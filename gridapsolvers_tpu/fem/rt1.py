@@ -3,7 +3,7 @@ actual Darcy configuration (test/Applications/DarcyGMG.jl:52-56: order=2,
 reffe_u = raviart_thomas order 1, reffe_p = P1 discontinuous, alpha=1e2
 grad-div augmented velocity block, vertex-star patch smoothers).
 
-TPU-native representation: on rectangles/boxes RT1 component d is the
+Representation: on rectangles/boxes RT1 component d is the
 tensor space (C0-P2 along axis d) x (discontinuous P1 transverse) — the
 normal component is continuous across d-normal faces (H(div) conformity)
 and free to jump transverse. Every operator block is therefore an exact
@@ -15,7 +15,7 @@ darcy.py:55-83):
     grad-div G_cd    :  kron chains of 1D d/dx couplings
     B (P1disc rows)  :  kron chains of 1D moment integrals
     transfers        :  per-axis 1D embeddings applied as tensordots
-                        (dense MXU matmuls; C0P2 and DGP1 refinements are
+                        (dense matmuls; C0P2 and DGP1 refinements are
                         NESTED, so R = P^T gives exact Galerkin coarse
                         corrections with rediscretized level operators)
 
@@ -314,7 +314,7 @@ def _dg_1d_embedding(nc: int) -> np.ndarray:
 
 
 def _axis_matmul(M: jnp.ndarray, x: jnp.ndarray, axis: int) -> jnp.ndarray:
-    y = jnp.tensordot(M, x, axes=[[1], [axis]])
+    y = jnp.tensordot(M, x, axes=[[1], [axis]], precision="highest")
     return jnp.moveaxis(y, 0, axis)
 
 
@@ -322,7 +322,7 @@ def _axis_matmul(M: jnp.ndarray, x: jnp.ndarray, axis: int) -> jnp.ndarray:
 @dataclasses.dataclass
 class RT1Prolongation:
     """Exact RT1 embedding coarse -> fine, applied as per-axis dense
-    tensordots (small 1D factor matrices on the MXU)."""
+    tensordots (small 1D factor matrices)."""
 
     mats: tuple                       # per comp: tuple of per-axis matrices
     coarse_cells: Tuple[int, ...] = dataclasses.field(

@@ -11,9 +11,9 @@ assembled into a 2x2 BlockOperator whose (0,0) entry is a FieldwiseOperator
 of per-component BANDED stiffness matrices (StencilMatrix on the Q2 node
 grid — gather-free SpMV). The augmented grad-div variant is banded too
 (Vanka patch extraction reads stencil leaves through ell_view), and
-engine='flat' additionally runs every velocity block through the
-sorted-slot Pallas SpMV kernel with materialized patch smoothers
-(algebra/flat.py, patches/materialized.py — the TPU fast path). A
+engine='flat' instead stores every velocity block as one field-blocked
+ELL operator with materialized patch smoothers (algebra/flat.py,
+patches/materialized.py). A
 manufactured divergence-free polynomial solution gives L2-error
 validation.
 """
@@ -187,9 +187,8 @@ def graddiv_velocity_block(
         # every (c,d) block is grid-local on the SAME Q2 node grid, so it
         # bands to a StencilMatrix (5^d offset envelope) exactly like the
         # plain velocity block — gather-free SpMVs for the Richardson
-        # residual updates that dominate the patch-smoothed GMG cycle
-        # (DESIGN.md: banded Q2 velocity SpMV 1.6 ms vs ELL 13.6 ms at
-        # nc=96). Vanka/patch extraction reads stencil leaves through the
+        # residual updates that dominate the patch-smoothed GMG cycle.
+        # Vanka/patch extraction reads stencil leaves through the
         # same ell_view machinery, so the smoothers are unchanged.
         gs_nodes = asm.node_grid_shape(mesh, 2)
 
@@ -299,8 +298,7 @@ def stokes_problem(
             Kv = flat_kernel_operator(Kv)
     else:
         # banded stencil on the Q2 node grid (5^d offset envelope):
-        # gather-free SpMV — measured ~75x faster than padded-ELL gathers
-        # on TPU for this block (DESIGN.md operator-storage table)
+        # gather-free SpMV
         K = stencil_from_scipy(
             K_csr, asm.node_grid_shape(mesh, 2), dtype=dtype
         )
@@ -392,7 +390,7 @@ def stokes_problem(
 
 def velocity_vanka_smoother(
     mesh: CartesianMesh, omega: float = 1.0, weighting: str = "unit",
-    engine: str = "batched",
+    materialized: bool = False,
 ):
     """Vertex-star patch smoother on the (possibly grad-div augmented)
     velocity block: one patch per mesh vertex holding the Q2 velocity dofs
@@ -403,10 +401,9 @@ def velocity_vanka_smoother(
     (StokesGMG.jl:38-47). Matrix-extracted (BlockJacobiSolvers.jl), so the
     same smoother serves the nonlinear refresh path.
 
-    engine='batched': gather/solve/scatter VankaSolver. Anything else is
-    passed to MaterializedVankaSmoother (one-SpMV apply; 'auto' = Pallas
-    kernel on TPU), whose per-Newton refresh is traceable too
-    (patches/materialized.py)."""
+    materialized=False: gather/solve/scatter VankaSolver. True: the
+    MaterializedVankaSmoother (one-SpMV apply), whose per-Newton refresh
+    is traceable too (patches/materialized.py)."""
     from ..patches.topology import concat_patches, vertex_star_patches
     from ..patches.vanka import VankaSolver
 
@@ -416,27 +413,25 @@ def velocity_vanka_smoother(
     t = vertex_star_patches(gs, free_mask=free, radius=1, stride=2)
     n_u = int(np.prod(gs))
     topo = concat_patches([t] * dim, [n_u] * dim)
-    if engine != "batched":
+    if materialized:
         from ..patches.materialized import MaterializedVankaSmoother
 
         return MaterializedVankaSmoother(
-            topo=topo, omega=omega, weighting=weighting, engine=engine
+            topo=topo, omega=omega, weighting=weighting
         )
     return VankaSolver(topo=topo, omega=omega, weighting=weighting)
 
 
 def graddiv_patch_prolongation(
     fine_mesh, coarse_mesh, base, K_aug, G, engine: str = "block",
-    band_dtype=None,
 ):
     """Coarse-cell-interior Vanka patch prolongation for grad-div
     augmented velocity GMG (shared by the Stokes and NS paths):
     xh = base(xH) - S_patch(G · base(xH)), local LHS = the full augmented
     operator restricted to DISJOINT coarse-cell interiors.
 
-    engine='flat' materializes the patch solves into one SpMV and runs
-    the rhs operator through the flattened kernel path (TPU fast path;
-    see patches/materialized.py)."""
+    engine='flat' materializes the patch solves into one SpMV and stores
+    the rhs operator field-blocked (see patches/materialized.py)."""
     from ..patches.topology import coarse_cell_patches, concat_patches
     from ..patches.transfer import PatchProlongation
     from ..patches.vanka import VankaSolver
@@ -455,9 +450,8 @@ def graddiv_patch_prolongation(
 
         vanka = MaterializedVankaSmoother(
             topo=topo, omega=1.0, weighting="unit", jacobi_uncovered=False,
-            band_dtype=band_dtype,
         )
-        G = flat_kernel_operator(G, band_dtype=band_dtype)
+        G = flat_kernel_operator(G)
     else:
         vanka = VankaSolver(
             topo=topo, omega=1.0, weighting="unit", jacobi_uncovered=False
@@ -472,8 +466,6 @@ def velocity_gmg(
     smoother=None,
     graddiv_alpha: float = 0.0,
     engine: str = "block",
-    flat_band_dtype=None,
-    flat_vanka_dtype="same",
     cheby_degree: int = 0,
     **kw,
 ):
@@ -486,14 +478,7 @@ def velocity_gmg(
     graddiv_alpha > 0 assembles the augmented-Lagrangian velocity biform
     per level and smooths with vertex-star patch Vanka (pointwise smoothers
     cannot damp the near-kernel the grad-div term creates — reference
-    StokesGMG.jl uses patch smoothers for exactly this reason).
-
-    flat_vanka_dtype: storage dtype for the materialized Vanka matrices
-    under engine='flat'; "same" follows flat_band_dtype. The Vanka
-    entries mix alpha-heavy (1e3) and O(1) scales inside each patch
-    inverse, so bf16 there can degrade convergence at fine h while bf16
-    BAND blocks stay benign — pass jnp.float32 to keep the smoother
-    exact while halving band traffic."""
+    StokesGMG.jl uses patch smoothers for exactly this reason)."""
     from ..linear.gmg import GMGSolver
     from ..linear.smoothers import ChebyshevSmoother
     from ..multilevel.hierarchy import cartesian_hierarchy
@@ -524,7 +509,7 @@ def velocity_gmg(
         # reference smoother: RichardsonSmoother(PatchSolver, 10, 0.2)
         # (StokesGMG.jl:57) — damped Richardson over vertex-star solves.
         # engine='flat' materializes each level's Vanka into one SpMV
-        # (patches/materialized.py) — same linear map, TPU fast path.
+        # (patches/materialized.py) — same linear map.
         from ..linear.smoothers import RichardsonSmoother
 
         def _vanka_for(m):
@@ -538,13 +523,8 @@ def velocity_gmg(
             t = vertex_star_patches(gs, free_mask=free, radius=1, stride=2)
             n_u = int(np.prod(gs))
             topo = concat_patches([t] * dim, [n_u] * dim)
-            vdt = (
-                flat_band_dtype if flat_vanka_dtype == "same"
-                else flat_vanka_dtype
-            )
             return MaterializedVankaSmoother(
-                topo=topo, omega=1.0, weighting="unit",
-                band_dtype=vdt,
+                topo=topo, omega=1.0, weighting="unit"
             )
 
         if cheby_degree > 0:
@@ -595,23 +575,18 @@ def velocity_gmg(
         ]
         level_ops = [p[0] for p in pairs]
         if engine == "flat":
-            # one flattened near-roofline SpMV per level operator
-            # (Richardson residual updates + GMG residual/corrections)
+            # one field-blocked ELL operator per level (Richardson
+            # residual updates + GMG residual/corrections)
             from ..algebra.flat import flat_kernel_operator
 
-            level_ops = [
-                flat_kernel_operator(op, band_dtype=flat_band_dtype)
-                for op in level_ops
-            ]
+            level_ops = [flat_kernel_operator(op) for op in level_ops]
         coarse_ops = tuple(level_ops[1:])
         for l in range(num_levels - 1):
             fine, coarse = hierarchy[l], hierarchy[l + 1]
             mask_f = asm.boundary_node_mask(fine, 2)
             mask_c = asm.boundary_node_mask(coarse, 2)
-            # flat engine: separable dense lowering (per-axis MXU
-            # contractions) — rectangular ELL pays the gather cliff the
-            # sorted-slot kernel can't cover (transfers measured 7.9 ms
-            # of the 49 ms/iter augmented cycle at nc=96 as ELL)
+            # flat engine: separable dense lowering (one small dense
+            # contraction per axis) instead of rectangular ELL gathers
             make_pair = (
                 fe_transfer_pair_dense if engine == "flat"
                 else fe_transfer_pair
@@ -624,7 +599,7 @@ def velocity_gmg(
             prolongs.append(
                 graddiv_patch_prolongation(
                     fine, coarse, base, level_ops[l], pairs[l][1],
-                    engine=engine, band_dtype=flat_band_dtype,
+                    engine=engine,
                 )
             )
     else:

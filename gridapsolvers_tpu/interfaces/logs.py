@@ -1,6 +1,6 @@
 """Convergence logging and solver statistics.
 
-TPU-native redesign of the reference's ConvergenceLog
+Redesign of the reference's ConvergenceLog
 (src/SolverInterfaces/ConvergenceLogs.jl:12-16,42-60,101-150): instead of
 mutating a host-side log inside the iteration (which would force host sync
 per step), every solver records its residual history into a fixed-size

@@ -77,9 +77,9 @@ class _HostPattern:
 
 def _swap_by_identity(obj, old, new):
     """Replace every reference to `old` (by object identity) inside a
-    state pytree of dicts/lists/tuples with `new` — used to point
-    smoother states at the Pallas kernel operator after their setup ran
-    against the XLA ELL one (same matrix, same spectrum)."""
+    state pytree of dicts/lists/tuples with `new` — used to point the
+    finest smoother state at the structured-stencil operator after its
+    setup ran against the ELL one (same matrix, same spectrum)."""
     if obj is old:
         return new
     if isinstance(obj, dict):
@@ -414,16 +414,6 @@ class AMGSolver(LinearSolver):
     smoother: object = None
     near_nullspace: Optional[object] = None  # (n, k) candidate vectors
     ncycles: int = 1
-    # SpMV engine for the square level operators: 'auto' = sorted-slot
-    # Pallas ELL kernel (ops/ell_pallas.py) on accelerator backends, XLA
-    # padded ELL on CPU; 'pallas'/'ell' force. Per-level fallback to ELL
-    # when a level is not bandwidth-bounded (the mean-position aggregate
-    # renumbering in _build keeps structured-problem levels banded) or
-    # not f32/bf16. Transfers and the dense-factorized coarsest level
-    # always stay ELL. interpret=True runs the kernel in Pallas
-    # interpreter mode (CPU testing).
-    engine: str = "auto"
-    interpret: bool = False
 
     def _build(self, A):
         S = to_scipy(A).tocsr()
@@ -501,8 +491,7 @@ class AMGSolver(LinearSolver):
         # apply()/solve() flatten/unflatten at the boundary
         # dtype-faithful: scipy Galerkin products promote to f64 (the
         # tentative P is built in f64), but the cycle must stay in the
-        # system's dtype — an f32 system gets an f32 AMG state (on TPU
-        # the global x64-off used to mask this; CPU/f64 tests exposed it)
+        # system's dtype — an f32 system gets an f32 AMG state
         vdt = mats_sp[0].dtype
 
         # width-tail capping before ELL conversion (padded ELL pays for
@@ -520,19 +509,15 @@ class AMGSolver(LinearSolver):
         R_ops = [
             ell_from_scipy(P.T.tocsr(), dtype=vdt) for P in Ps
         ]
-        # smoother states set up against the XLA ELL operators (eig
-        # estimation may matvec, which must work on the host backend),
-        # then the operator reference inside each state is swapped for
-        # the kernel operator so the jitted cycle rides it
+        # smoother states set up against the ELL operators, then the
+        # finest operator reference inside its state is swapped for the
+        # cycle operator
         sm_states = [sm.setup(m) for m in mats[:-1]]
-        kmats = self._kernelize(mats)
+        kmats = list(mats)
         # finest level: if the system operator is a structured stencil
         # (flat-vector matvec), keep IT as the cycle operator — the
-        # banded/const-stencil lowering is the fastest SpMV in the repo
-        # (DESIGN.md: ~4x the roofline of any indexed format) and the
-        # 27-point 3D pattern is exactly the case the sorted-slot kernel
-        # rejects as not bandwidth-bounded (total b-span ~8K > cap),
-        # which used to silently fall back to the serialized XLA gather
+        # banded/const-stencil lowering reads no column indices, so it
+        # moves fewer bytes per nonzero than any indexed format
         from ..algebra.stencil import ConstStencilMatrix, StencilMatrix
 
         if (
@@ -551,80 +536,11 @@ class AMGSolver(LinearSolver):
         coarse_state = coarse.setup(mats[-1])
         return {
             "mats": kmats,
-            "P": self._kernelize_rect(P_ops),
-            "R": self._kernelize_rect(R_ops),
+            "P": P_ops,
+            "R": R_ops,
             "sm": sm_states,
             "coarse": coarse_state,
         }
-
-    def _kernelize_rect(self, ops):
-        """Transfer operators on the kernel too (pallas_rect: repeat-x /
-        residue-fold remaps make the aggregate P/R bounded-span); same
-        engine policy and per-operator ELL fallback as the levels."""
-        from ..algebra.ell import ELLMatrix
-        from ..algebra.flat import resolve_engine
-
-        if resolve_engine(self.engine) != "pallas":
-            return ops
-        from ..ops.ell_pallas import pallas_rect
-
-        out = []
-        for m in ops:
-            # fallback contract: anything the kernel can't take (non-ELL
-            # operator, non-f32 values, unbounded span) stays on XLA ELL
-            if not isinstance(m, ELLMatrix) or m.values.dtype != jnp.float32:
-                out.append(m)
-                continue
-            try:
-                # span headroom for transfers: ragged aggregate ratios
-                # drift the remapped offsets more than square stencils do
-                # (3D 32^3 P0 measures span 311 at K=12), and the
-                # alternative is the SERIALIZED XLA gather — the kernel
-                # wins until span*5 vector ops approach 1024 rows' worth
-                # of serialized-gather cycles (break-even ~205*K); 64*K
-                # keeps a 3x margin, the absolute cap bounds the kernel's
-                # unrolled span loop (compile time)
-                out.append(
-                    pallas_rect(
-                        m,
-                        max_total_span=min(64 * m.row_width, 2048),
-                        interpret=self.interpret,
-                    )
-                )
-            except ValueError:
-                out.append(m)
-        return out
-
-    def _kernelize(self, mats):
-        """Per-level Pallas-kernel conversion of the square level
-        operators (engine policy in the class docstring). The coarsest
-        level stays ELL — it is densified by the coarse solver anyway."""
-        from ..algebra.flat import resolve_engine
-
-        if resolve_engine(self.engine) != "pallas":
-            return mats
-        from ..ops.ell_pallas import pallas_ell
-
-        out = []
-        for m in mats[:-1]:
-            if m.values.dtype != jnp.float32:
-                out.append(m)  # f64 levels: kernel is f32/bf16-only
-                continue
-            try:
-                # same span headroom as the rect transfers (and the same
-                # cost model: span*5 vector ops vs K*1024 serialized-
-                # gather cycles) — the default 6*K cap rejects 3D
-                # 27-point levels at ~8*K for no good reason
-                out.append(
-                    pallas_ell(
-                        m,
-                        max_total_span=20 * m.row_width,
-                        interpret=self.interpret,
-                    )
-                )
-            except ValueError:
-                out.append(m)  # not bandwidth-bounded: XLA ELL fallback
-        return out + [mats[-1]]
 
     def setup(self, A, x=None):
         mats_sp, Ps, P0s = self._build(A)

@@ -1,6 +1,6 @@
 """Preconditioned Conjugate Gradient.
 
-TPU-native redesign of the reference's CGSolver
+Redesign of the reference's CGSolver
 (src/LinearSolvers/Krylov/CGSolvers.jl:10-23,73-138): the iteration is a
 lax.while_loop over a pytree carry so the whole preconditioned solve
 (including a nested GMG preconditioner) compiles into one XLA program.

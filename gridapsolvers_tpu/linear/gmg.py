@@ -1,6 +1,6 @@
 """Geometric multigrid (GMG) — the centerpiece solver.
 
-TPU-native redesign of the reference's GMGLinearSolvers.jl (649 LoC):
+Redesign of the reference's GMGLinearSolvers.jl (649 LoC):
 
 - `GMGSolver` == GMGLinearSolverFromMatrices (reference :8-20): per-level
   matrices + transfer operators + smoothers + coarsest solver, with
@@ -33,7 +33,6 @@ from ..interfaces import (
     make_stats,
 )
 from ..utils import pytrees as pt
-from .amg import _swap_by_identity
 from .direct import DenseLUSolver
 from .smoothers import JacobiSolver, RichardsonSmoother
 
@@ -93,7 +92,7 @@ class GMGSolver(LinearSolver):
     rtol: float = 1e-8
     matrices_fn: Optional[Callable] = None
     solution_restrictions: Optional[tuple] = None
-    # Mixed precision (TPU-native): run the whole cycle in a reduced dtype
+    # Mixed precision: run the whole cycle in a reduced dtype
     # (e.g. jnp.bfloat16 — half the HBM traffic, the bandwidth-bound
     # regime's free 2x) while the outer Krylov iterates in full precision.
     # A reduced-precision preconditioner varies slightly between
@@ -111,14 +110,6 @@ class GMGSolver(LinearSolver):
     # convergence (DESIGN round-4 bf16 A/B); mixed keeps iteration
     # counts at the f32 preconditioner's.
     mixed: bool = False
-    # 'auto': ELL level operators (incl. d x d BlockOperator blocks, the
-    # NS velocity Jacobians) ride the sorted-slot Pallas kernel on
-    # accelerator backends, with PATTERN-STATIC values-only refresh at
-    # update() (pallas_ell_refresh) — so the per-Newton nonlinear
-    # reassembly stays jit-traceable inside the device Newton loop while
-    # every cycle matvec is gather-free. 'off' keeps XLA ELL.
-    kernelize_levels: str = "off"
-    kernel_interpret: bool = False
 
     def __post_init__(self):
         if self.smoother is None:
@@ -161,80 +152,13 @@ class GMGSolver(LinearSolver):
             xs.append(R.matvec(xs[-1]))
         return xs
 
-    def _kernelize(self, mats, old=None):
-        """kernelize_levels: convert/refresh level operators onto the
-        Pallas sorted-slot kernel. old=None builds (host-side, setup);
-        old given refreshes values through the stored pattern map —
-        fully traceable (update inside the device Newton loop). The
-        coarsest level stays raw (dense-factorized anyway)."""
-        from ..algebra.block import BlockOperator
-        from ..algebra.ell import ELLMatrix
-        from ..algebra.flat import resolve_engine
-        from ..ops.ell_pallas import (
-            PallasELL,
-            pallas_ell,
-            pallas_ell_refresh,
-        )
-
-        if (
-            self.kernelize_levels == "off"
-            or resolve_engine(self.kernelize_levels) != "pallas"
-        ):
-            return mats
-
-        def conv(m, o):
-            if isinstance(m, ELLMatrix):
-                if isinstance(o, PallasELL):
-                    return pallas_ell_refresh(o, m.values)
-                if o is None:
-                    try:
-                        return pallas_ell(
-                            m, refreshable=True,
-                            interpret=self.kernel_interpret,
-                        )
-                    except ValueError:
-                        return m  # not bandwidth-bounded: XLA ELL
-                return m
-            if isinstance(m, BlockOperator):
-                ob = o.blocks if isinstance(o, BlockOperator) else None
-                return dataclasses.replace(
-                    m,
-                    blocks=tuple(
-                        tuple(
-                            conv(
-                                mb,
-                                ob[i][j] if ob is not None else None,
-                            )
-                            for j, mb in enumerate(row)
-                        )
-                        for i, row in enumerate(m.blocks)
-                    ),
-                )
-            return m
-
-        out = [
-            conv(m, old[i] if old is not None else None)
-            for i, m in enumerate(mats[:-1])
-        ]
-        return out + [mats[-1]]
-
     def setup(self, A, x=None):
-        mats_raw = self._level_mats(A, x)
-        mats = self._kernelize(mats_raw)
+        mats = self._level_mats(A, x)
         pre, post = self._smoothers()
         xs = self.project_solutions(x)
-        # smoothers set up against the RAW operators (patch extraction
-        # needs ELL value access), then their internal operator refs are
-        # swapped to the kernel ops so every in-cycle matvec rides them
-        pre_states = [
-            _swap_by_identity(s.setup(m, xl), m, k)
-            for s, m, k, xl in zip(pre, mats_raw, mats, xs)
-        ]
-        post_states = [
-            _swap_by_identity(s.setup(m, xl), m, k)
-            for s, m, k, xl in zip(post, mats_raw, mats, xs)
-        ]
-        coarse_state = self.coarsest_solver.setup(mats_raw[-1], xs[-1])
+        pre_states = [s.setup(m, xl) for s, m, xl in zip(pre, mats, xs)]
+        post_states = [s.setup(m, xl) for s, m, xl in zip(post, mats, xs)]
+        coarse_state = self.coarsest_solver.setup(mats[-1], xs[-1])
         # transfers live in the STATE (they are pytrees holding mask
         # arrays): captured via self they would become giant HLO constants
         # in every jitted solve
@@ -267,42 +191,34 @@ class GMGSolver(LinearSolver):
     def update(self, state, A, x=None):
         """Re-setup for a new fine matrix / Newton iterate (reference
         numerical_setup!, GMGLinearSolvers.jl:260-297)."""
-        mats_raw = self._level_mats(A, x)
-        mats = self._kernelize(mats_raw, old=state["mats"])
+        mats = self._level_mats(A, x)
         pre, post = self._smoothers()
         xs = self.project_solutions(x)
         pre_states = [
-            _swap_by_identity(s.update(st, m, xl), m, k)
-            for s, st, m, k, xl in zip(
-                pre, state["pre"], mats_raw, mats, xs
-            )
+            s.update(st, m, xl)
+            for s, st, m, xl in zip(pre, state["pre"], mats, xs)
         ]
         post_states = [
-            _swap_by_identity(s.update(st, m, xl), m, k)
-            for s, st, m, k, xl in zip(
-                post, state["post"], mats_raw, mats, xs
-            )
+            s.update(st, m, xl)
+            for s, st, m, xl in zip(post, state["post"], mats, xs)
         ]
         coarse_state = self.coarsest_solver.update(
-            state["coarse"], mats_raw[-1], xs[-1]
+            state["coarse"], mats[-1], xs[-1]
         )
         # transfer operators carrying their own operator-dependent state
         # (PatchProlongation/PatchRestriction) re-extract at the new level
         # operators — the reference's update_transfer_operator! on the
-        # nonlinear path (PatchTransferOperators.jl:118-151). Extraction
-        # must see the RAW ELL operator: ell_view reads values tables the
-        # kernelized PallasELL no longer exposes (the BENCH_r04
-        # ns-graddiv TypeError), and the stored operator must NOT be
-        # swapped to the kernel op afterwards — update() runs inside the
-        # device Newton loop (lax.while_loop), whose carried state pytree
-        # structure must match the setup-time state exactly.
+        # nonlinear path (PatchTransferOperators.jl:118-151). update()
+        # runs inside the device Newton loop (lax.while_loop), whose
+        # carried state pytree structure must match the setup-time state
+        # exactly.
         P_new = tuple(
             p.update(mr) if hasattr(p, "update") else p
-            for p, mr in zip(state["P"], mats_raw[:-1])
+            for p, mr in zip(state["P"], mats[:-1])
         )
         R_new = tuple(
             r.update(mr) if hasattr(r, "update") else r
-            for r, mr in zip(state["R"], mats_raw[:-1])
+            for r, mr in zip(state["R"], mats[:-1])
         )
         new = {
             "mats": mats,

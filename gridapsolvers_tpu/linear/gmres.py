@@ -1,6 +1,6 @@
 """GMRES and FGMRES.
 
-TPU-native redesign of the reference's GMRESSolver / FGMRESSolver
+Redesign of the reference's GMRESSolver / FGMRESSolver
 (src/LinearSolvers/Krylov/GMRESSolvers.jl:16-29,132-210;
 Krylov/FGMRESSolvers.jl:17-30,130-199):
 
@@ -10,10 +10,10 @@ Krylov/FGMRESSolvers.jl:17-30,130-199):
   exactly this substitution).
 - Orthogonalization is block classical Gram-Schmidt with one
   re-orthogonalization pass (CGS2): all basis dots are computed as ONE
-  contraction against the stacked basis (an (m+1, n) x (n,) matvec -> MXU),
-  instead of the reference's sequential modified Gram-Schmidt loop
-  (GMRESSolvers.jl:164-170) which would serialize on TPU. CGS2 has the same
-  stability class as MGS.
+  contraction against the stacked basis (an (m+1, n) x (n,) matvec at full
+  f32 precision), instead of the reference's sequential modified
+  Gram-Schmidt loop (GMRESSolvers.jl:164-170), which would launch one
+  reduction per basis vector. CGS2 has the same stability class as MGS.
 - Givens-rotation QR of the Hessenberg column and the final triangular solve
   are O(m^2) scalar work done in masked fori_loops (negligible vs matvecs).
 
@@ -55,7 +55,9 @@ def _basis_dots(basis, w):
     leaves_w = jax.tree_util.tree_leaves(w)
     total = None
     for lb, lw in zip(leaves_b, leaves_w):
-        d = lb.reshape(lb.shape[0], -1) @ lw.reshape(-1)
+        d = jnp.matmul(
+            lb.reshape(lb.shape[0], -1), lw.reshape(-1), precision="highest"
+        )
         total = d if total is None else total + d
     return total
 
@@ -76,15 +78,6 @@ class GMRESSolver(LinearSolver):
     # (reference ConvergenceLog verbose=HIGH, ConvergenceLogs.jl:101-150);
     # trace-time gate: zero cost when False
     verbose: bool = False
-    # 'auto': put the OUTER system operator's ELL leaves (square and
-    # rectangular, incl. nested block structure) on the sorted-slot
-    # Pallas kernel on accelerator backends, with pattern-static
-    # values-only refresh at update() — the outer matvec is one of the
-    # two per-iteration costs of the NS Newton flagship (profiled ~6 of
-    # 17 ms/inner-iter as a raw XLA-ELL gather). Preconditioners keep
-    # receiving the RAW operator (patch extraction needs value tables).
-    kernelize: str = "off"
-    kernel_interpret: bool = False
     name: str = "GMRES"
     depth: int = 0
 
@@ -92,26 +85,14 @@ class GMRESSolver(LinearSolver):
     def tols(self) -> SolverTolerances:
         return SolverTolerances(self.maxiter, self.atol, self.rtol)
 
-    def _kernelize_A(self, A, old=None):
-        from ..algebra.flat import resolve_engine
-
-        if (
-            self.kernelize == "off"
-            or resolve_engine(self.kernelize) != "pallas"
-        ):
-            return A
-        from ..ops.ell_pallas import kernelize_system
-
-        return kernelize_system(A, old, interpret=self.kernel_interpret)
-
     def setup(self, A, x=None):
-        state = {"A": self._kernelize_A(A)}
+        state = {"A": A}
         state["Pl"] = self.Pl.setup(A, x) if self.Pl is not None else None
         state["Pr"] = self.Pr.setup(A, x) if self.Pr is not None else None
         return state
 
     def update(self, state, A, x=None):
-        new = {"A": self._kernelize_A(A, state["A"])}
+        new = {"A": A}
         new["Pl"] = (
             self.Pl.update(state["Pl"], A, x) if self.Pl is not None else None
         )
@@ -205,7 +186,7 @@ class GMRESSolver(LinearSolver):
         # back substitution on the j x j triangular system R y = g
         def back(kk, y):
             k = m - 1 - kk
-            num = g[k] - H[k, :] @ y
+            num = g[k] - jnp.dot(H[k, :], y, precision="highest")
             diag = H[k, k]
             val = jnp.where(
                 (k < j) & (jnp.abs(diag) > 0), num / jnp.where(diag == 0, 1.0, diag), 0.0

@@ -3,7 +3,7 @@
 Analog of the reference's SchwarzLinearSolver
 (src/LinearSolvers/SchwarzLinearSolvers.jl:6-17,24-32,44-49): local solves
 on overlapping subdomains followed by an additive combine. The reference's
-subdomains are MPI-rank locals; on TPU we take contiguous overlapping
+subdomains are MPI-rank locals; here we take contiguous overlapping
 row-slabs of the structured grid (one per "virtual rank"), factorize each
 slab operator densely, and apply all slab solves batched — the combine is a
 weighted scatter-add (the reference's assemble!+consistent!).
@@ -14,10 +14,10 @@ TwoLevelSchwarzSolver adds a GenEO spectral coarse space — the in-repo
 analog of the reference's HPDDMLinearSolver (ext/GridapPETScExt/
 HPDDMLinearSolvers.jl:44-55,124-143: PCHPDDM fed with local overlapping
 Neumann matrices, which builds the GenEO coarse space of Spillane et al.).
-TPU redesign: the per-subdomain generalized eigenproblems
+Redesign: the per-subdomain generalized eigenproblems
     A_i^Neumann z = lambda (D_i A_i^Dirichlet D_i) z
-are ONE batched Cholesky + eigh over all subdomains (MXU work, no
-per-rank loop), the coarse space is the partition-of-unity lift of the
+are ONE batched Cholesky + eigh over all subdomains (no per-rank
+loop), the coarse space is the partition-of-unity lift of the
 nev smallest eigenvectors, and both levels apply as batched
 gather/solve/scatter kernels.
 """
@@ -272,7 +272,7 @@ class TwoLevelSchwarzSolver(LinearSolver):
             .add(Zp[s, :, e])[:n]
         )(s_ix, e_ix)                          # (m, n)
         Acols = jax.vmap(A.matvec)(cols)       # (m, n)
-        A0 = cols @ Acols.T
+        A0 = jnp.matmul(cols, Acols.T, precision="highest")
         m = ns * nev
         A0 = A0 + 1e-10 * jnp.trace(A0) / m * jnp.eye(m, dtype=A0.dtype)
 
@@ -298,12 +298,14 @@ class TwoLevelSchwarzSolver(LinearSolver):
         ns, _, nev = Zp.shape
         re = jnp.concatenate([r, jnp.zeros((1,), r.dtype)])
         rp = re[dofs]                                    # (ns, k)
-        rc = jnp.einsum("ska,sk->sa", Zp, rp).reshape(-1)
+        rc = jnp.einsum("ska,sk->sa", Zp, rp, precision="highest").reshape(-1)
         if self.coarse_solver is None:
             c = jax.scipy.linalg.lu_solve(state["A0_lu"], rc)
         else:
             c, _ = self.coarse_solver.solve(state["A0_state"], rc)
-        dxp = jnp.einsum("ska,sa->sk", Zp, c.reshape(ns, nev))
+        dxp = jnp.einsum(
+            "ska,sa->sk", Zp, c.reshape(ns, nev), precision="highest"
+        )
         z2 = (
             jnp.zeros((r.shape[0] + 1,), r.dtype)
             .at[dofs.reshape(-1)]

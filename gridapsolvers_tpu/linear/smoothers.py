@@ -1,6 +1,6 @@
 """Smoothers and simple preconditioners.
 
-Covers the reference's smoother inventory (SURVEY.md §2.3) with TPU-native
+Covers the reference's smoother inventory (SURVEY.md §2.3) with data-parallel
 algorithm substitutions where the reference algorithm is inherently serial:
 
 - JacobiSolver            ← JacobiLinearSolvers.jl (diag⁻¹)
@@ -8,12 +8,12 @@ algorithm substitutions where the reference algorithm is inherently serial:
                             (x, r)-updating smoothing contract)
 - RichardsonLinearSolver  ← RichardsonLinearSolvers.jl (scalar or per-dof ω)
 - ChebyshevSmoother       : matvec-only polynomial smoother — the standard
-                            parallel replacement for Gauss-Seidel in GPU/TPU
+                            parallel replacement for Gauss-Seidel in GPU
                             multigrid (SURVEY.md §7 "prefer Chebyshev/Jacobi").
 - ColoredGaussSeidel      ← SymGaussSeidelSmoothers.jl:147-208. The reference
                             does processor-block GS (GS inside a rank, Jacobi
-                            across); a TPU has no cheap serial lane, so we use
-                            multicolor GS: nodes of one color update
+                            across); a serial sweep leaves a GPU idle, so we
+                            use multicolor GS: nodes of one color update
                             simultaneously (exact GS ordering for structured
                             stencils with 2^d colors), forward/backward/
                             symmetric sweeps.
@@ -226,7 +226,7 @@ class ChebyshevSmoother(Smoother):
 
     Targets the spectrum [lmax/ratio, lmax·safety] of D⁻¹A with lmax from
     power iteration. Matvec-only (no sequential dependencies) — the
-    TPU-idiomatic multigrid smoother.
+    data-parallel multigrid smoother.
     """
 
     degree: int = 3
@@ -292,7 +292,7 @@ class PreconditionedChebyshevSmoother(Smoother):
     degree d replaces a Richardson(niter=n) sweep at d/n of the SpMV
     cost for the same smoothing quality class).
 
-    TPU-native generalization of the reference's Richardson-wrapped
+    Generalization of the reference's Richardson-wrapped
     patch smoothers (RichardsonSmoothers.jl:20-38 around
     PatchSolvers.jl): same M, optimal polynomial weights instead of a
     fixed damping. M must be symmetric positive (additive patch solvers
@@ -310,38 +310,18 @@ class PreconditionedChebyshevSmoother(Smoother):
     safety: float = 1.05
     power_iters: int = 12
     reestimate: bool = False
-    # host-safe twin used ONLY for the setup-time lmax estimate: when M
-    # applies through an accelerator-only kernel (materialized Vanka on
-    # Pallas), the eager host-side power iteration cannot execute it.
-    # Defaults to M._vanka() when M exposes one (the materialized
-    # smoother's batched twin — the SAME linear map), else M itself.
-    M_est: object = None
-
-    def _estimator(self):
-        if self.M_est is not None:
-            return self.M_est
-        mk = getattr(self.M, "_vanka", None)
-        return mk() if callable(mk) else self.M
-
     def _lmax(self, Mst, A):
-        # host-safe estimate: the power iteration runs EAGERLY at setup
-        # (possibly under a host default-device), so both M and A must
-        # be applicable there — unwrap kernel operators to the wrapped
-        # composite (.inner, the same linear map) and use the batched
-        # estimator twin
-        est = self._estimator()
-        A_est = getattr(A, "inner", None) or A
         v = jax.tree_util.tree_map(
             lambda d: jnp.sin(
                 jnp.arange(1, d.size + 1, dtype=d.dtype) * 12.9898
             ).reshape(d.shape),
-            A_est.diag(),
+            A.diag(),
         )
         v = pt.scale(1.0 / pt.norm(v), v)
 
         def body(_, carry):
             v, lam = carry
-            w = est.apply(Mst, A_est.matvec(v))
+            w = self.M.apply(Mst, A.matvec(v))
             lam = pt.norm(w)
             return (pt.scale(1.0 / jnp.where(lam > 0, lam, 1.0), w), lam)
 
@@ -350,21 +330,15 @@ class PreconditionedChebyshevSmoother(Smoother):
         )
         return lam * self.safety
 
-    def _est_state(self, Mst, A, x):
-        est = self._estimator()
-        if est is self.M:
-            return Mst
-        return est.setup(getattr(A, "inner", None) or A, x)
-
     def setup(self, A, x=None):
         Mst = self.M.setup(A, x)
-        lmax = self._lmax(self._est_state(Mst, A, x), A)
+        lmax = self._lmax(Mst, A)
         return {"A": A, "M": Mst, "lmax": lmax}
 
     def update(self, state, A, x=None):
         Mst = self.M.update(state["M"], A, x)
         if self.reestimate:
-            lmax = self._lmax(self._est_state(Mst, A, x), A)
+            lmax = self._lmax(Mst, A)
         else:
             lmax = state["lmax"]
         return {"A": A, "M": Mst, "lmax": lmax}
@@ -426,7 +400,7 @@ class ColoredGaussSeidel(Smoother):
     simultaneous update within each color (exact GS for a coloring of the
     adjacency graph). sweep ∈ ('forward','backward','symmetric').
 
-    TPU-native replacement for the reference's processor-block
+    Replacement for the reference's processor-block
     SymGaussSeidelSmoother (SymGaussSeidelSmoothers.jl:147-208) — instead of
     serializing within a rank, we extract all the parallelism the graph
     coloring allows.
@@ -439,11 +413,10 @@ class ColoredGaussSeidel(Smoother):
     omega: float = 1.0
     # 'masked' applies a full (mostly-zero) matvec per color; 'compact'
     # works on parity-compact subgrids reading each band once per pass
-    # (StencilMatrix only, exact-equality tested). MEASURED (64^3 Poisson,
-    # symmetric sweep): TPU v5e masked 0.42 ms vs compact 7.0 ms — XLA
-    # fuses the masked color chain to ~2x one matvec of HBM traffic while
-    # stride-2 slicing forces layout changes; CPU compact 0.94 s vs
-    # masked 1.46 s. Default = the TPU-best choice.
+    # (StencilMatrix only, exact-equality tested). XLA fuses the masked
+    # color chain to ~2x one matvec of memory traffic, while stride-2
+    # slicing forces layout changes. Which is faster on the H100 is not
+    # measured.
     impl: str = "masked"
 
     def setup(self, A, x=None):

@@ -49,7 +49,10 @@ class AugmentedNullspaceOperator:
         k, n = self.K.shape
         xn, lam = v[:n], v[n:]
         Ax, _ = _ravel(self.A.matvec(_unravel(xn, self.template)))
-        return jnp.concatenate([Ax + self.K.T @ lam, self.K @ xn])
+        return jnp.concatenate([
+            Ax + jnp.matmul(self.K.T, lam, precision="highest"),
+            jnp.matmul(self.K, xn, precision="highest"),
+        ])
 
     def diag(self):
         d, _ = _ravel(self.A.diag())

@@ -15,7 +15,7 @@ from ..linear.gmg import gmg_from_hierarchy
 from ..multilevel import cartesian_hierarchy
 
 
-def solve_poisson(
+def poisson_solver(
     ncells: Tuple[int, ...],
     num_levels: int = 3,
     rtol: float = 1e-8,
@@ -24,6 +24,9 @@ def solve_poisson(
     exact: str = "linear",
     dtype=None,
 ):
+    """Build the problem and its GMG-CG solver; returns (prob, solver).
+    `solve_poisson` runs them; callers that time setup, compile and
+    solve separately call this."""
     import numpy as np
 
     dtype = dtype or np.float64
@@ -42,7 +45,21 @@ def solve_poisson(
         coarsest_solver=DenseInverseSolver(),
         cycle=cycle,
     )
-    solver = CGSolver(Pl=gmg, rtol=rtol, maxiter=maxiter)
+    return prob, CGSolver(Pl=gmg, rtol=rtol, maxiter=maxiter)
+
+
+def solve_poisson(
+    ncells: Tuple[int, ...],
+    num_levels: int = 3,
+    rtol: float = 1e-8,
+    maxiter: int = 30,
+    cycle: str = "v",
+    exact: str = "linear",
+    dtype=None,
+):
+    prob, solver = poisson_solver(
+        ncells, num_levels, rtol, maxiter, cycle, exact, dtype
+    )
     state = solver.setup(prob.A)
     x, stats = solver.solve(state, prob.b)
     return x, stats, {"l2_error": float(prob.l2_error(x)), "problem": prob}

@@ -1,6 +1,6 @@
 """Adaptive (locally refined) hierarchies + composite-grid solves.
 
-TPU-native analog of the reference's octree AMR extension
+Analog of the reference's octree AMR extension
 (ext/GridapP4estExt/GridapP4estExt.jl:25-39 P4estCartesianModelHierarchy,
 backed by p4est's adaptive octrees with hanging-node constraints resolved
 by Gridap's FESpace machinery). p4est's pointer-chased octree leaves and

@@ -5,10 +5,10 @@ Analog of the reference's ModelHierarchy machinery
 Cartesian meshes finest-first, each coarser level a factor-2 (or given
 factor) coarsening, plus the per-level assembled operators.
 
-TPU-native divergence from the reference (SURVEY.md §7 "GMG level
+Divergence from the reference (SURVEY.md §7 "GMG level
 re-sharding"): the reference moves coarse levels onto MPI subcommunicators
 (nested rank subsets, HierarchicalArray holding `nothing` on non-member
-ranks). On a TPU mesh ALL chips participate in every level — coarse levels
+ranks). On a device mesh ALL devices participate in every level — coarse levels
 simply change the data sharding (or replicate), so there is no membership
 bookkeeping and no `with_level` guard; hierarchies are plain lists.
 Per-level sharding specs live in parallel/dist.py.

@@ -5,7 +5,7 @@ Analog of the reference's LocalProjectionMap
 a (lower-order) local space cell by cell via small mass solves — used e.g.
 for grad-div stabilization Pi_Qh(div u) in Stokes/Navier-Stokes.
 
-TPU-native: on a uniform mesh every cell shares one projection matrix
+On a uniform mesh every cell shares one projection matrix
 P_e = M_to^{-1} B_e (precomputed on host), so the map is one gather, one
 batched small matmul, and one multiplicity-averaged scatter.
 """
@@ -60,7 +60,7 @@ class LocalProjectionMap:
         nodes (the reference's assembled-projection behavior up to the
         averaging convention)."""
         u_cell = u[self._conn_from]                      # (ncells, n_from_e)
-        p_cell = u_cell @ self._P.T                      # (ncells, n_to_e)
+        p_cell = jnp.matmul(u_cell, self._P.T, precision="highest")  # (ncells, n_to_e)
         out = jnp.zeros(self.n_to, u.dtype).at[
             self._conn_to.reshape(-1)
         ].add(p_cell.reshape(-1))
@@ -77,7 +77,7 @@ class SpaceProjectionMap:
     constrained slots get zeros. Needed when the arrival space has
     Dirichlet constraints the projection must respect.
 
-    TPU-native: the mesh is uniform, so cells fall into a handful of
+    The mesh is uniform, so cells fall into a handful of
     constraint-pattern CLASSES (interior cells all-free; boundary cells
     by which faces they touch). Host setup solves one restricted system
     per class; the device apply is one gather, one batched matmul over
@@ -133,7 +133,7 @@ class SpaceProjectionMap:
         averaged at shared free nodes, exact zeros at constrained dofs."""
         u_cell = u[self._conn_from]                  # (ncells, n_from_e)
         P_cell = self._P[self._cls]                  # (ncells, n_to_e, n_from_e)
-        p_cell = jnp.einsum("cij,cj->ci", P_cell, u_cell)
+        p_cell = jnp.einsum("cij,cj->ci", P_cell, u_cell, precision="highest")
         out = jnp.zeros(self.n_to, u.dtype).at[
             self._conn_to.reshape(-1)
         ].add(p_cell.reshape(-1))

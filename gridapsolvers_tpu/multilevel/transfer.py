@@ -1,17 +1,18 @@
 """Grid transfer operators (prolongation / restriction).
 
-TPU-native redesign of the reference's DistributedGridTransferOperator
+Redesign of the reference's DistributedGridTransferOperator
 (src/MultilevelTools/GridTransferOperators.jl:161-217,391-584): on structured
 vertex grids with factor-2 refinement, Q1 interpolation is EXACTLY a
 transposed strided convolution with the tensor-product kernel
-[1/2, 1, 1/2]^(⊗d) — so both transfer directions lower to
-lax.conv_general_dilated, which XLA maps onto the conv/matmul units instead
-of the reference's generic FE interpolation + mass-solve machinery.
+[1/2, 1, 1/2]^(⊗d), applied one axis at a time as shifted slices
+(plain elementwise work that XLA fuses) instead of the reference's
+generic FE interpolation + mass-solve machinery.
 
 Modes (reference :interpolation / :dual_projection / :projection):
-- Prolongation (solution mode)  = interpolation: P = dilated conv.
-- Restriction (residual mode)   = dual: R = P^T = strided conv with the
-  same kernel. For geometric rediscretized level matrices this is the
+- Prolongation (solution mode)  = interpolation: P = per-axis linear
+  interpolation.
+- Restriction (residual mode)   = dual: R = P^T = per-axis full
+  weighting. For geometric rediscretized level matrices this is the
   standard full-weighting restriction; it coincides with the reference's
   dual-projection up to the mass scaling it applies (GMG convergence is
   invariant to that scaling when the coarse operator is rediscretized).
@@ -40,8 +41,7 @@ def _expand_dim(cur: jnp.ndarray, d: int, periodic: bool = False) -> jnp.ndarray
     """One-dimensional factor-2 linear interpolation along axis d:
     (n,) -> (2n-1,) with even = values, odd = midpoint averages — or
     (n,) -> (2n,) wrapping the last midpoint when periodic. Pure
-    stack/reshape/slice — an alternative lowering to the dilated conv that
-    fuses as plain elementwise work."""
+    stack/reshape/slice, which fuses as plain elementwise work."""
     n = cur.shape[d]
     nxt = jax.lax.slice_in_dim(cur, 1, n, axis=d)
     last = (
@@ -104,29 +104,6 @@ def restrict_slices(xf: jnp.ndarray, factors=None, periodic=None) -> jnp.ndarray
     return out
 
 
-def _q1_kernel(dim: int, dtype) -> jnp.ndarray:
-    w = jnp.asarray([0.5, 1.0, 0.5], dtype)
-    k = w
-    for _ in range(dim - 1):
-        k = jnp.tensordot(k, w, axes=0)
-    return k
-
-
-def _conv_dims(dim: int):
-    # NCHW-style: batch, feature, spatial...
-    spatial = "".join(chr(ord("0") + i) for i in range(dim))
-    lhs = ("N", "C") + tuple(spatial)
-    return jax.lax.conv_dimension_numbers(
-        (1, 1) + (3,) * dim,
-        (1, 1) + (3,) * dim,
-        (
-            "NC" + spatial,
-            "OI" + spatial,
-            "NC" + spatial,
-        ),
-    )
-
-
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass
 class StructuredProlongation:
@@ -142,12 +119,6 @@ class StructuredProlongation:
     grid_vectors: bool = dataclasses.field(
         default=False, metadata=dict(static=True)
     )
-    # 'slices' (stack/reshape interleave, default) or 'conv' (dilated
-    # convolution) — two exact lowerings of the same operator. Measured on
-    # TPU v5e at 129^3: conv pays a layout-change penalty when composed
-    # with the boundary masks (3.6 ms vs 2 us for P) — slices win by orders
-    # of magnitude.
-    impl: str = dataclasses.field(default="slices", metadata=dict(static=True))
     # per-axis refinement factors in {1, 2} (anisotropic nrefs) and
     # periodic-wrap flags; None = all-2 / none-periodic
     factors: Optional[Tuple[int, ...]] = dataclasses.field(
@@ -158,26 +129,9 @@ class StructuredProlongation:
     )
 
     def matvec(self, xc: jnp.ndarray) -> jnp.ndarray:
-        dim = len(self.coarse_shape)
-        dtype = xc.dtype
-        if self.factors is not None or self.periodic is not None:
-            y = prolong_slices(
-                xc.reshape(self.coarse_shape), self.factors, self.periodic
-            )
-        elif self.impl == "slices":
-            y = prolong_slices(xc.reshape(self.coarse_shape))
-        else:
-            g = xc.reshape((1, 1) + self.coarse_shape)
-            k = _q1_kernel(dim, dtype).reshape((1, 1) + (3,) * dim)
-            out = jax.lax.conv_general_dilated(
-                g,
-                k,
-                window_strides=(1,) * dim,
-                padding=[(1, 1)] * dim,
-                lhs_dilation=(2,) * dim,
-                dimension_numbers=_conv_dims(dim),
-            )
-            y = out.reshape(self.fine_shape)
+        y = prolong_slices(
+            xc.reshape(self.coarse_shape), self.factors, self.periodic
+        )
         if self.mask_fine is not None:
             y = y * self.mask_fine.reshape(self.fine_shape)
         return y if self.grid_vectors else y.reshape(-1)
@@ -204,7 +158,6 @@ class StructuredRestriction:
     grid_vectors: bool = dataclasses.field(
         default=False, metadata=dict(static=True)
     )
-    impl: str = dataclasses.field(default="slices", metadata=dict(static=True))
     factors: Optional[Tuple[int, ...]] = dataclasses.field(
         default=None, metadata=dict(static=True)
     )
@@ -213,31 +166,15 @@ class StructuredRestriction:
     )
 
     def matvec(self, xf: jnp.ndarray) -> jnp.ndarray:
-        dim = len(self.fine_shape)
-        dtype = xf.dtype
         xf = xf.reshape(self.fine_shape)
         if self.mask_fine is not None:
             xf = xf * self.mask_fine.reshape(self.fine_shape)
-        g = xf.reshape((1, 1) + self.fine_shape)
         if self.mode == "solution":
             # injection: take coincident vertices (stride = factor)
-            fac = self.factors or (2,) * dim
-            idx = tuple(slice(0, None, f) for f in fac)
-            y = g[(0, 0) + idx].reshape(self.coarse_shape)
-        elif self.factors is not None or self.periodic is not None:
-            y = restrict_slices(xf, self.factors, self.periodic)
-        elif self.impl == "slices":
-            y = restrict_slices(xf)
+            fac = self.factors or (2,) * len(self.fine_shape)
+            y = xf[tuple(slice(0, None, f) for f in fac)]
         else:
-            k = _q1_kernel(dim, dtype).reshape((1, 1) + (3,) * dim)
-            out = jax.lax.conv_general_dilated(
-                g,
-                k,
-                window_strides=(2,) * dim,
-                padding=[(1, 1)] * dim,
-                dimension_numbers=_conv_dims(dim),
-            )
-            y = out.reshape(self.coarse_shape)
+            y = restrict_slices(xf, self.factors, self.periodic)
         if self.mask_coarse is not None:
             y = y * self.mask_coarse.reshape(self.coarse_shape)
         return y if self.grid_vectors else y.reshape(-1)
@@ -367,13 +304,9 @@ class TensorTransfer:
     The FE embedding on a Cartesian grid is kron(P1d_0, ..., P1d_{D-1})
     (`fe_grid_interpolation`), and the Dirichlet masking is diagonal on
     both sides, so  P_masked = diag(m_out) · kron(...) · diag(m_in).
-    The matvec is then D tensordots with tiny dense (m_f, m_c) factors —
-    MXU matmuls instead of the serialized gather the rectangular ELL
-    lowering pays (measured: the R/P pair of the augmented Stokes GMG at
-    nc=96 costs 7.9 ms as ELL vs the kernel-dominated cycle's 49 ms/iter;
-    transfers cannot ride the sorted-slot Pallas kernel because the
-    col ~ 2·row relation breaks its bounded-offset premise —
-    ops/ell_pallas.py scope note).
+    The matvec is then D tensordots with tiny dense (m_f, m_c) factors
+    (full f32 precision) instead of the gathers of the rectangular ELL
+    lowering.
 
     mats[d]: (out_d, in_d) dense factor for axis d. mask_in / mask_out:
     optional flat {0,1} arrays (free-dof masks). Works as prolongation
@@ -392,7 +325,11 @@ class TensorTransfer:
         y = x.reshape(self.in_shape)
         for d, M in enumerate(self.mats):
             y = jnp.moveaxis(
-                jnp.tensordot(M.astype(y.dtype), y, axes=([1], [d])), 0, d
+                jnp.tensordot(
+                    M.astype(y.dtype), y, axes=([1], [d]), precision="highest"
+                ),
+                0,
+                d,
             )
         y = y.reshape(-1)
         if self.mask_out is not None:
@@ -409,7 +346,7 @@ class TensorTransfer:
 
 def fe_transfer_pair_dense(coarse_ncells, order, mask_f=None, mask_c=None):
     """`fe_transfer_pair` with the separable dense lowering (TensorTransfer):
-    numerically identical P / R = Pᵀ, per-axis MXU contractions instead of
+    numerically identical P / R = Pᵀ, per-axis dense contractions instead of
     rectangular ELL gathers. masks are Dirichlet masks (True = constrained),
     matching fe_transfer_pair's zero_rows/zero_columns convention."""
     p1ds = [

@@ -2,7 +2,7 @@
 //
 // The reference's performance-critical host work lives in linked native
 // libraries (MPI/PETSc/MUMPS/... — SURVEY.md §2.9). Our device compute path
-// is XLA/Pallas; this library covers the setup-time host hot spots that are
+// is XLA; this library covers the setup-time host hot spots that are
 // slow in pure Python/NumPy:
 //
 //   - COO -> padded-ELL packing (assembly exit point)

@@ -1,6 +1,6 @@
 """Distributed (sharded) operators and problems.
 
-The TPU-native replacement for the reference's PartitionedArrays layer
+The replacement for the reference's PartitionedArrays layer
 (PVector/PSparseMatrix + consistent!/assemble! ghost exchange, SURVEY.md
 §2.8-2.9), designed per the scaling-book recipe: pick a mesh, annotate
 shardings, let XLA insert collectives.
@@ -37,7 +37,7 @@ def pad0(n: int, nprocs: int) -> int:
     """Padded size of a sharded grid axis: next multiple of nprocs. Vertex
     grids have 2^k+1 rows — never divisible — so the distributed path pads
     sharded axes with identity rows (decoupled dofs pinned at zero). Static
-    padding is the TPU-idiomatic answer: aligned equal shards, no
+    padding is the idiomatic answer: aligned equal shards, no
     uneven-sharding bookkeeping."""
     return ((n + nprocs - 1) // nprocs) * nprocs
 

@@ -1,6 +1,6 @@
 """Row-sharded general-sparsity operators (distributed ELL) + halo exchange.
 
-The TPU-native analog of the reference's PSparseMatrix/PVector layer for
+The analog of the reference's PSparseMatrix/PVector layer for
 UNSTRUCTURED sparsity (SURVEY.md §2.8-2.9; reference PAExtras.jl ghost
 machinery): rows are partitioned in equal contiguous blocks over a 1-D
 device axis, and each shard's column indices are pre-localized into an

@@ -10,7 +10,7 @@ boxes; ghost values move along a STATIC neighbor-offset graph, one
 ExchangeGraph of the reference (src/SolverInterfaces/PAExtras.jl:84-97),
 never an all-to-all.
 
-TPU-native design points:
+Design points:
   * each shard's column space is  [ own box (m_in) | ghost slab per offset ]
     with setup-time int32 gather tables, so SpMV is ppermutes + one fused
     gather-reduce (no dynamic shapes, no per-neighbor control flow);
@@ -445,7 +445,7 @@ def dense_padded_nd(S, part: BoxPartition, identity_pad: bool = True):
     The replicated coarsest-level operator of a box-sharded GMG hierarchy
     (the reference re-shards coarse levels onto subcommunicators,
     ModelHierarchies.jl; here the coarse system is replicated and solved
-    with one MXU matmul — see linear/direct.DenseInverseSolver). Padding
+    with one dense product — see linear/direct.DenseInverseSolver). Padding
     slots get a unit diagonal so the padded system stays invertible."""
     n = S.shape[0]
     assert S.shape[1] == n, "dense coarse embedding needs a square operator"
@@ -559,7 +559,7 @@ def redistribute_vector_nd(
     possibly over another device mesh with another device count (the
     reference's RedistributionOperator / redistribute!,
     src/MultilevelTools/DistributedGridTransferOperators.jl redist stage
-    and GridapP4est redistribution). TPU-native lowering: one static
+    and GridapP4est redistribution). Lowering: one static
     permutation gather under the target sharding; XLA emits the
     collectives (device_put moves data device-to-device, no host trip).
 

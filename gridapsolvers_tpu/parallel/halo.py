@@ -471,7 +471,8 @@ def _ghost_extend(mesh, name, p, W, arrs, band_axis_first):
                 h_hi = jnp.zeros_like(al[tuple(hi_sl)])
             return jnp.concatenate([h_lo, al, h_hi], axis=ax0)
 
-        return fn
+        # jit: run eagerly, the shard_map compiles each op on its own
+        return jax.jit(fn)
 
     out = []
     for a, is_band in zip(arrs, band_axis_first):

@@ -322,7 +322,7 @@ class DistVankaNDSolver(Smoother):
             vi = valid[:, :, None] & valid[:, None, :]
             eye = jnp.eye(meta.k, dtype=vals_loc.dtype)[None]
             Ap = jnp.where(vi, Ap, eye)
-            # explicit batched inverse: apply-time solve = one MXU matmul
+            # explicit batched inverse: apply-time solve = one product
             inv = jnp.linalg.inv(Ap)
             own_glob = (
                 jax.lax.axis_index(axes).astype(cols.dtype) * M
@@ -331,7 +331,9 @@ class DistVankaNDSolver(Smoother):
             dloc = jnp.sum(jnp.where(cols == own_glob, vals_loc, 0.0), axis=1)
             return inv[None], dloc
 
-        inv, diag = jax.shard_map(
+        # jit: run eagerly, the shard_map would dispatch (and compile)
+        # each of its primitives on its own
+        inv, diag = jax.jit(jax.shard_map(
             local,
             mesh=meta.mesh,
             in_specs=(
@@ -346,7 +348,7 @@ class DistVankaNDSolver(Smoother):
                 P(axes, None, None, None),
                 P(axes),
             ),
-        )(
+        ))(
             state["cols"], state["ghost_cols"], state["dofs_win"],
             state["dofs_glob"], *state["send"], *leaf_vals,
         )
@@ -387,7 +389,8 @@ class DistVankaNDSolver(Smoother):
             dwin = dwin[0]
             rp = r_win1[jnp.minimum(dwin, L)]            # sentinel -> 0
             dxp = jnp.einsum(
-                "pij,pj->pi", inv[0], rp, preferred_element_type=rp.dtype
+                "pij,pj->pi", inv[0], rp, preferred_element_type=rp.dtype,
+                precision="highest",
             )
             dxp = jnp.where(dwin != L, dxp, 0.0)
             ze = jnp.zeros((L + 1,), r_win.dtype).at[dwin.reshape(-1)].add(

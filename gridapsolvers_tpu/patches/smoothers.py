@@ -1,13 +1,13 @@
 """Patch-based smoothers as batched dense kernels.
 
-TPU-native redesign of the reference's PatchBasedSmoothers
+Redesign of the reference's PatchBasedSmoothers
 (src/PatchBasedSmoothers/PatchSolvers.jl, BlockJacobiSolvers.jl): the
 reference loops patches, LU-factorizing each little matrix with lazy_map
-and gather/ldiv!/scatter per patch (PatchSolvers.jl:227-277). On TPU all
+and gather/ldiv!/scatter per patch (PatchSolvers.jl:227-277). Here all
 patches have one padded width, so the whole smoother is three batched ops:
 
     gather   (n_patches, k)        <- r[patch_dofs]
-    solve    (n_patches, k, k) batched Cholesky/LU   (MXU)
+    solve    (n_patches, k, k) batched explicit-inverse matvec
     scatter-add with overlap weights -> additive Schwarz over patches
 
 Patch matrices are extracted from the assembled operator (the reference's
@@ -116,9 +116,8 @@ class PatchSolver(Smoother):
         Ap = extract_patch_matrices_ell(ell, state["dofs"], self.topo.dummy)
         new = dict(state)
         # EXPLICIT batched inverses, not factorizations: the apply-time
-        # solve becomes one batched (np,k,k)@(np,k) matmul on the MXU.
-        # Batched triangular solves serialize on TPU (DESIGN.md measured
-        # a 4913-dof triangular solve at ~56 ms vs ~0.3 ms as a matmul);
+        # solve becomes one batched (np,k,k)@(np,k) product instead of
+        # batched triangular solves;
         # patch blocks are small and well-conditioned, so the inverse is
         # numerically safe and setup-time-only.
         new["inv"] = jnp.linalg.inv(Ap)
@@ -132,10 +131,10 @@ class PatchSolver(Smoother):
         return new
 
     def _patch_solve(self, state, rp):
-        # batched dense solve via precomputed inverse: one MXU matmul
+        # batched dense solve via precomputed inverse: one batched product
         return jnp.einsum(
             "pij,pj->pi", state["inv"], rp,
-            preferred_element_type=rp.dtype,
+            preferred_element_type=rp.dtype, precision="highest",
         )
 
     def apply(self, state, r):

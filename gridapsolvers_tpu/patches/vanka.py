@@ -8,7 +8,7 @@ EXTRACTED from the assembled block system (not reassembled), LU-factorized,
 and applied as batched overlapping solves with scatter-add.
 
 The reference needs a distributed ghost-row fetch (PAExtras.jl:9-110) so
-every owned patch sees complete rows; on TPU the sharded arrays already
+every owned patch sees complete rows; here the sharded arrays already
 expose a global view — XLA materializes whatever remote rows the gathers
 touch, so the fetch machinery disappears.
 """
@@ -130,9 +130,9 @@ class VankaSolver(Smoother):
         vals = ell_values(A, meta, state["leaf_masks"])
         ell = ELLMatrix(vals, state["ell_cols"], meta.n_cols)
         Ap = extract_patch_matrices_ell(ell, state["dofs"], meta.n_rows)
-        # explicit batched patch inverses: apply becomes one MXU batched
-        # matmul instead of TPU-hostile batched triangular solves (see
-        # PatchSolver._refresh note / DESIGN.md)
+        # explicit batched patch inverses: apply becomes one batched
+        # product instead of batched triangular solves (see
+        # PatchSolver._refresh note)
         inv = jnp.linalg.inv(Ap)
         # uncovered dofs (eliminated Dirichlet identity rows): point-Jacobi
         diag = ell.diag()
@@ -156,7 +156,7 @@ class VankaSolver(Smoother):
         rp = jnp.where(valid, re[dofs], 0.0)
         dxp = jnp.einsum(
             "pij,pj->pi", state["inv"], rp,
-            preferred_element_type=rp.dtype,
+            preferred_element_type=rp.dtype, precision="highest",
         )
         dxp = jnp.where(valid, dxp, 0.0)
         z = jnp.zeros_like(re).at[dofs.reshape(-1)].add(dxp.reshape(-1))

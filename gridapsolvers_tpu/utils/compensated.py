@@ -1,21 +1,21 @@
 """Error-free transformations and double-f32 ("two-float") arithmetic.
 
-TPUs have no f64; the f32 representation/accumulation floor is what kept
-the on-chip residuals of alpha-scaled systems ~1e4 x eps32 above the
-reference's f64 CI tolerances (KrylovTests.jl:25,67 asserts L2 < 1e-8).
-These kernels emulate ~2x f32 precision with IEEE f32 ops only:
+The f32 representation/accumulation floor keeps the residuals of
+alpha-scaled f32 systems ~1e4 x eps32 above the reference's f64 CI
+tolerances (KrylovTests.jl:25,67 asserts L2 < 1e-8). These kernels emulate
+~2x f32 precision with IEEE f32 ops only:
 
 - two_sum:  Knuth's branch-free 6-flop exact addition (s + e == a + b).
 - two_prod: Dekker's split-based exact product (no FMA dependence —
-  XLA does not guarantee contraction, and Mosaic f32 multiplies are
-  correctly rounded, which is all Dekker needs).
+  XLA does not guarantee contraction; Dekker needs only correctly
+  rounded f32 multiplies). tests/test_gpu.py checks exactness on the GPU.
 - comp_ell_matvec / comp_stencil_matvec: compensated SpMV returning the
   (hi, lo) unevaluated sum — the per-row accumulation error drops from
   O(K * eps * max|a_k x_k|) to O(eps^2), which is exactly the term that
   dominates the residual floor when entries are alpha-scaled and cancel.
 
-All functions are jit-traceable elementwise code (VPU path, ~4x the
-flops of the plain op — irrelevant for bandwidth-bound SpMV).
+All functions are jit-traceable elementwise code (~4x the flops of the
+plain op — irrelevant for bandwidth-bound SpMV).
 """
 from __future__ import annotations
 
@@ -131,8 +131,8 @@ def comp_stencil_matvec(A, x, x_lo=None):
 def comp_dot(a, b):
     """Partially compensated dot product -> (hi, lo). Exact two_prod per
     element + exact cross-chunk two_sum, but the within-chunk partial
-    sums are plain f32 (a full dot2 would serialize n two_sums — hostile
-    to the VPU). Measured ~3-10x tighter than a plain f32 dot; NOT eps^2.
+    sums are plain f32 (a full dot2 would serialize n two_sums).
+    Measured ~3-10x tighter than a plain f32 dot; NOT eps^2.
     The eps^2-grade kernel in this module is comp_ell_matvec (residual
     evaluation — where the refinement floor actually lives; the residual
     NORM of an already-small compensated residual only needs plain f32).

@@ -2,7 +2,7 @@
 
 Every solver in this framework operates on vectors that are arbitrary JAX
 pytrees (a flat array, a tuple of per-field blocks, a dict, ...). This is the
-TPU-native replacement for the reference's PVector/BlockPVector distinction:
+Replacement for the reference's PVector/BlockPVector distinction:
 block structure is just tree structure, and sharding is carried by the leaves,
 so a single Krylov implementation serves serial, distributed, and block
 systems (reference needs PartitionedArrays.jl + BlockArrays.jl for this).
@@ -23,7 +23,10 @@ def dot(a, b):
     """Global inner product sum_i <a_i, b_i> over all leaves (real)."""
     leaves_a = jax.tree_util.tree_leaves(a)
     leaves_b = jax.tree_util.tree_leaves(b)
-    return sum(jnp.vdot(x, y) for x, y in zip(leaves_a, leaves_b))
+    return sum(
+        jnp.vdot(x, y, precision="highest")
+        for x, y in zip(leaves_a, leaves_b)
+    )
 
 
 def norm(a):

@@ -2,10 +2,9 @@
 
 Analog of the reference's PTimer usage (SURVEY.md §5: tic!/toc! with
 barriers around phases, timer data merged into benchmark output,
-joss_paper/scalability/src/stokes_gmg.jl:2-36). TPU specifics:
+joss_paper/scalability/src/stokes_gmg.jl:2-36):
 
-- fences use a device_get of a tiny checksum (block_until_ready is not a
-  reliable barrier on remote backends);
+- fences wait for every leaf with jax.block_until_ready;
 - `trace` wraps a region with jax.profiler for TensorBoard-compatible
   traces of the XLA execution.
 """
@@ -16,15 +15,11 @@ import time
 from typing import Dict
 
 import jax
-import jax.numpy as jnp
 
 
 def fence(x) -> None:
-    """True completion barrier: forces a tiny device->host transfer
-    depending on every leaf of x."""
-    for leaf in jax.tree_util.tree_leaves(x):
-        if hasattr(leaf, "ravel"):
-            float(jnp.sum(jnp.ravel(leaf)[:1]))
+    """Completion barrier: waits until every leaf of x is computed."""
+    jax.block_until_ready(x)
 
 
 class PTimer:
@@ -60,7 +55,7 @@ class PTimer:
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/gst_trace"):
+def trace(log_dir: str):
     """jax.profiler trace of the enclosed region (view in TensorBoard /
     xprof)."""
     jax.profiler.start_trace(log_dir)

@@ -17,13 +17,13 @@ set -u
 cd "$(dirname "$0")/.."
 J="${J:-3}"
 START=$(date +%s)
-mkdir -p /tmp/suite_logs
+mkdir -p ${TMPDIR:-/tmp}/suite_logs
 
 run_one() {
   f="$1"; shift
   t0=$(date +%s)
   if timeout 1500 python -m pytest "$f" -q -p no:cacheprovider "$@" \
-      > "/tmp/suite_logs/$(basename "$f").log" 2>&1; then
+      > "${TMPDIR:-/tmp}/suite_logs/$(basename "$f").log" 2>&1; then
     status=ok
   else
     status=FAIL
@@ -35,15 +35,15 @@ export -f run_one
 
 printf "%s\n" tests/test_*.py \
   | xargs -P "$J" -I{} bash -c 'run_one "$@"' _ {} "$@" \
-  | tee /tmp/suite_logs/summary.txt
+  | tee ${TMPDIR:-/tmp}/suite_logs/summary.txt
 
 echo "----"
-sort -k3 -n -r /tmp/suite_logs/summary.txt | head -8
+sort -k3 -n -r ${TMPDIR:-/tmp}/suite_logs/summary.txt | head -8
 FAIL=0
-if grep -q FAIL /tmp/suite_logs/summary.txt; then
+if grep -q FAIL ${TMPDIR:-/tmp}/suite_logs/summary.txt; then
   FAIL=1
-  for f in $(awk '$2=="FAIL"{print $1}' /tmp/suite_logs/summary.txt); do
-    echo "=== $f ==="; tail -30 "/tmp/suite_logs/$f.log"
+  for f in $(awk '$2=="FAIL"{print $1}' ${TMPDIR:-/tmp}/suite_logs/summary.txt); do
+    echo "=== $f ==="; tail -30 "${TMPDIR:-/tmp}/suite_logs/$f.log"
   done
 fi
 echo "total: $(( $(date +%s) - START ))s  exit=$FAIL"

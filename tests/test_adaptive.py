@@ -1,4 +1,4 @@
-"""Block-structured AMR + composite-grid Galerkin solves — the TPU-native
+"""Block-structured AMR + composite-grid Galerkin solves — the
 analog of the reference's GridapP4estExt octree AMR
 (GridapP4estExt.jl:25-39: p4est adaptive octrees + Gridap hanging-node
 constraints).

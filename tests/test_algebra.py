@@ -134,3 +134,42 @@ def test_stencil_from_scipy_q2():
     np.testing.assert_allclose(
         np.asarray(St.matvec(jnp.asarray(x))), Sp @ x, atol=1e-12
     )
+
+
+def test_dirichlet_square_matches_lil_reference():
+    """The vectorized symmetric Dirichlet elimination equals the plain
+    LIL row/column zeroing it replaced: same pattern (explicit zeros of
+    free rows kept, constrained rows reduced to their unit diagonal) and
+    same values."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from gridapsolvers_tpu.fem import assembly2 as asm
+    from gridapsolvers_tpu.fem.mesh import CartesianMesh
+
+    def reference(S, mask):
+        S = S.tolil()
+        idx = np.where(mask)[0]
+        S[idx, :] = 0.0
+        S[:, idx] = 0.0
+        S[idx, idx] = 1.0
+        return S.tocsr()
+
+    m2 = CartesianMesh((12, 12), (0, 1, 0, 1))
+    m3 = CartesianMesh((4, 5, 3), (0, 1, 0, 1, 0, 1))
+    R = sp.random(300, 300, density=0.05, random_state=1, format="csr")
+    R.data[::7] = 0.0
+    cases = [
+        (asm.assemble_bilinear(m2, 2, "stiffness"),
+         asm.boundary_node_mask(m2, 2)),
+        (asm.assemble_bilinear(m3, 1, "stiffness"),
+         asm.boundary_node_mask(m3, 1)),
+        (R, np.random.default_rng(0).random(300) < 0.2),
+    ]
+    for S, mask in cases:
+        a = reference(S.copy(), mask)
+        b = asm.dirichlet_square(S.copy(), mask)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a.indptr, b.indptr)
+        np.testing.assert_array_equal(a.indices, b.indices)
+        np.testing.assert_array_equal(a.data, b.data)

@@ -1,6 +1,6 @@
-"""Flattened-kernel operator wrapper + materialized Vanka smoother
+"""Field-blocked ELL operator wrapper + materialized Vanka smoother
 (algebra/flat.py, patches/materialized.py): exact equivalence with the
-block/batched paths on CPU (the Pallas engine is exercised by bench.py)."""
+block/batched paths."""
 import numpy as np
 
 import jax
@@ -21,7 +21,7 @@ def _mesh(nc):
 
 def test_flat_operator_matches_block_matvec():
     K = graddiv_velocity_block(_mesh(8), 1.0, 1e3, banded=True)
-    F = flat_kernel_operator(K, engine="ell")
+    F = flat_kernel_operator(K)
     rng = np.random.default_rng(0)
     n = K.block(0, 0).shape[0]
     x = tuple(jnp.asarray(rng.normal(size=n)) for _ in range(2))
@@ -45,7 +45,6 @@ def test_materialized_vanka_matches_batched():
     vanka = velocity_vanka_smoother(mesh, omega=0.7)
     mat = MaterializedVankaSmoother(
         topo=vanka.topo, omega=0.7, weighting=vanka.weighting,
-        engine="ell",
     )
     vst = vanka.setup(K)
     mst = mat.setup(K)
@@ -80,7 +79,6 @@ def test_materialized_vanka_traceable_refresh():
     vanka = velocity_vanka_smoother(mesh, omega=0.7)
     mat = MaterializedVankaSmoother(
         topo=vanka.topo, omega=0.7, weighting=vanka.weighting,
-        engine="ell",
     )
     st1 = mat.setup(K1)
     st2 = jax.jit(mat.update)(st1, K2)
@@ -119,7 +117,7 @@ def test_materialized_vanka_overlap_weighting_matches_batched():
     x1 = jax.tree_util.tree_map(lambda a: a + 0.05, x0)
     A2 = prob.jacobian(x1).blocks[0][0]
     v = VankaSolver(omega=1.0, seed_field=-1)
-    m = MaterializedVankaSmoother(omega=1.0, seed_field=-1, engine="ell")
+    m = MaterializedVankaSmoother(omega=1.0, seed_field=-1)
     assert m.weighting == v.weighting  # defaults aligned
     vst = v.setup(A1)
     mst = m.setup(A1)
